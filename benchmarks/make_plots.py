@@ -15,8 +15,8 @@ import matplotlib.pyplot as plt
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from interiorpoint_tpu.utils.csvio import read_results
-from interiorpoint_tpu.utils.plotting import (
+from interiorpoint.utils.csvio import read_results
+from interiorpoint.utils.plotting import (
     calculate_average_relative_error, plot_backtrack_distribution,
     plot_family, plot_timing_comparison)
 
@@ -35,12 +35,12 @@ def _dims_for(t):
 def main():
     os.makedirs(PLOTS, exist_ok=True)
     for suite in ("LP", "QP", "SOCP"):
-        path = os.path.join(RESULTS, f"testResults_tpu_{suite}.csv")
+        path = os.path.join(RESULTS, f"testResults_ours_{suite}.csv")
         if not os.path.exists(path):
             continue
         t = read_results(path)
         series = [t]
-        labels = ["interiorpoint-tpu (v5e)"]
+        labels = ["interiorpoint"]
         orc = os.path.join(RESULTS, f"testResults_oracle_{suite}.csv")
         if os.path.exists(orc):
             series.append(read_results(orc))
@@ -55,7 +55,7 @@ def main():
         print(f"{suite}: wrote timing plot + {len(written)}-style family")
 
     # LP accuracy vs oracle
-    tv = os.path.join(RESULTS, "testResults_tpu_LPValues.csv")
+    tv = os.path.join(RESULTS, "testResults_ours_LPValues.csv")
     ov = os.path.join(RESULTS, "testResults_oracle_LPValues.csv")
     if os.path.exists(tv) and os.path.exists(ov):
         err = calculate_average_relative_error(read_results(ov),
@@ -64,11 +64,11 @@ def main():
         with open(os.path.join(RESULTS, "lp_accuracy.txt"), "w") as f:
             f.write(f"LP average relative error vs scipy-HiGHS: {err:.6e}\n")
 
-    lt = os.path.join(RESULTS, "testResults_tpu_LASSOTimes.csv")
+    lt = os.path.join(RESULTS, "testResults_ours_LASSOTimes.csv")
     if os.path.exists(lt):
         t = read_results(lt)
         ax = plot_timing_comparison([t], _dims_for(t),
-                                    labels=["interiorpoint-tpu (v5e)"],
+                                    labels=["interiorpoint"],
                                     title="LASSO (30 batched) solve time vs n")
         ax.figure.savefig(os.path.join(PLOTS, "lasso_timing.png"),
                           dpi=120, bbox_inches="tight")

@@ -28,15 +28,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-# Persistent compilation cache (large Pallas programs take minutes to build)
-os.makedirs("/tmp/ip_tpu_jax_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/ip_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
-from interiorpoint_tpu import (  # noqa: E402
+from interiorpoint import (  # noqa: E402
     LassoSolver, LPSolver, QPSolver, SOCPSolver)
-from interiorpoint_tpu.utils import generators, oracle  # noqa: E402
-from interiorpoint_tpu.utils.csvio import write_results  # noqa: E402
+from interiorpoint.utils import generators, oracle  # noqa: E402
+from interiorpoint.utils.compile_cache import enable_compile_cache  # noqa: E402
+from interiorpoint.utils.csvio import write_results  # noqa: E402
 
 
 def _reps_for(n, N):
@@ -55,30 +52,19 @@ def _timed(fn):
 
 
 # Above this problem size, unload every compiled executable between
-# cells.  Round-5a/b probes (benchmarks/results/round5{a,b}_raw.log):
-# with ZERO live client arrays after a SOCP n=5000 solve, the next
-# identical solve still died RESOURCE_EXHAUSTED — the HBM held by the
-# loaded-executable set (TPU programs + their embedded constants live
-# in device memory) plus allocator fragmentation is what starved rep 1.
-# jax.clear_caches() between cells fixed it outright (rep 1/2 both
-# solve in 4.8 s), and with the persistent compile cache on disk the
-# re-warm costs ~nothing (24 s, identical to a warm-cache first solve).
+# cells, so that loaded programs and allocator fragmentation left by one
+# large cell do not starve the next; the persistent compile cache makes
+# the re-warm cheap.
 _CLEAR_CACHES_MIN_N = 3000
 
 
 def _release(n=0):
     """Per-cell device hygiene: collect (and, for large cells, unload
     compiled executables) BEFORE the next cell constructs its device
-    arrays.
-
-    Round-4 post-mortem (round4_sweep_raw.log): the loop pattern
-    ``solver = Solver(...)`` kept the PREVIOUS rep's solver — with its
-    full device-resident problem + null-space reduction (~2 GiB at SOCP
-    n=5000) — alive throughout the next rep's construction and warm
-    solve, doubling steady HBM exactly when the solve needs its peak
-    working set.  The suites now construct/solve inside a per-cell
-    closure so the solver's device buffers die by refcount at cell exit;
-    this collect clears any cyclic stragglers before the next cell."""
+    arrays.  The suites construct and solve inside a per-cell closure,
+    so that a solver's device buffers die by refcount at cell exit
+    instead of living on through the next rep's construction; this
+    collect clears any cyclic stragglers."""
     gc.collect()
     if n >= _CLEAR_CACHES_MIN_N:
         import jax
@@ -88,9 +74,9 @@ def _release(n=0):
 
 def _cell(fn, suite, n, i, on_fail):
     """Run one (suite, n, rep) cell with fault isolation that also covers
-    device-state recovery: on HBM exhaustion, drop every cached executable
-    and live buffer and retry the cell once.  A cell that still fails
-    calls ``on_fail()`` (record NaN) and the sweep moves on (reference
+    device-state recovery: on device-memory exhaustion, drop every cached
+    executable and live buffer and retry the cell once.  A cell that still
+    fails calls ``on_fail()`` (record NaN) and the sweep moves on (reference
     endurance target: 19 dims x 10 reps in one process,
     testSolver.py:1305-1333).  Returns fn()'s result, or None on
     unrecovered failure."""
@@ -134,11 +120,8 @@ def test_LP(dims, N=10, outdir=".", verbose=True, check_oracle=True):
             hist_box = []
 
             def run():
-                solver = LPSolver(
-                    **p, suppress_print=True, check_cvxpy=False,
-                    epsilon=1e-4, mu=15, t0=1, max_inner_iters=20,
-                    max_outer_iters=10, beta=0.5,
-                    alpha=0.05)  # (reference: testSolver.py:131-146)
+                solver = LPSolver(**p, **generators.RECIPE_SETTINGS["lp"],
+                                  suppress_print=True, check_cvxpy=False)
                 solver.solve()  # warm the jit cache (one-time compile)
                 dt, val = _timed(solver.solve)
                 if getattr(solver, "backtrack_hist", None) is not None:
@@ -166,8 +149,8 @@ def test_LP(dims, N=10, outdir=".", verbose=True, check_oracle=True):
         # backtrack_distribution.png (reference instrumentation)
         np.savetxt(os.path.join(outdir, "backtrack_hist.csv"), bt_hist,
                    delimiter=",", fmt="%d")
-    write_results(os.path.join(outdir, "testResults_tpu_LP.csv"), t_ours)
-    write_results(os.path.join(outdir, "testResults_tpu_LPValues.csv"),
+    write_results(os.path.join(outdir, "testResults_ours_LP.csv"), t_ours)
+    write_results(os.path.join(outdir, "testResults_ours_LPValues.csv"),
                   v_ours)
     if check_oracle:
         write_results(os.path.join(outdir, "testResults_oracle_LP.csv"),
@@ -188,11 +171,8 @@ def test_QP(dims, N=10, outdir=".", verbose=True, check_oracle=True):
             p = generators.generate_qp(n)
 
             def run():
-                solver = QPSolver(
-                    **p, suppress_print=True, check_cvxpy=False,
-                    epsilon=1e-8, mu=15, t0=0.01, max_inner_iters=100,
-                    max_outer_iters=10,
-                    beta=0.6)  # (reference: testSolver.py:565-580)
+                solver = QPSolver(**p, **generators.RECIPE_SETTINGS["qp"],
+                                  suppress_print=True, check_cvxpy=False)
                 solver.solve()
                 dt, val = _timed(solver.solve)
                 return dt, val
@@ -208,8 +188,8 @@ def test_QP(dims, N=10, outdir=".", verbose=True, check_oracle=True):
             t_ours[count, i], v_ours[count, i] = dt, val
             if verbose:
                 print(f"QP n={n} rep={i}: ours {dt:.3f}s val={val:.5f}")
-    write_results(os.path.join(outdir, "testResults_tpu_QP.csv"), t_ours)
-    write_results(os.path.join(outdir, "testResults_tpu_QPValues.csv"),
+    write_results(os.path.join(outdir, "testResults_ours_QP.csv"), t_ours)
+    write_results(os.path.join(outdir, "testResults_ours_QPValues.csv"),
                   v_ours)
     return t_ours, v_ours
 
@@ -226,12 +206,9 @@ def test_SOCP(dims, N=10, outdir=".", verbose=True):
             x0 = p.pop("x0")
 
             def run():
-                solver = SOCPSolver(
-                    **p, suppress_print=True, check_cvxpy=False,
-                    epsilon=1e-4, mu=15, t0="auto", max_inner_iters=500,
-                    max_outer_iters=20, beta=0.5, alpha=0.05,
-                    x0=x0)  # (reference: testSolver.py:924-941; t0
-                # auto-scaled, the reference's fixed t0 fails here)
+                solver = SOCPSolver(**p, **generators.RECIPE_SETTINGS["socp"],
+                                    suppress_print=True, check_cvxpy=False,
+                                    x0=x0)
                 solver.solve()
                 dt, val = _timed(solver.solve)
                 return dt, val
@@ -247,8 +224,8 @@ def test_SOCP(dims, N=10, outdir=".", verbose=True):
             t_ours[count, i], v_ours[count, i] = dt, val
             if verbose:
                 print(f"SOCP n={n} rep={i}: ours {dt:.3f}s val={val:.5f}")
-    write_results(os.path.join(outdir, "testResults_tpu_SOCP.csv"), t_ours)
-    write_results(os.path.join(outdir, "testResults_tpu_SOCPValues.csv"),
+    write_results(os.path.join(outdir, "testResults_ours_SOCP.csv"), t_ours)
+    write_results(os.path.join(outdir, "testResults_ours_SOCPValues.csv"),
                   v_ours)
     return t_ours, v_ours
 
@@ -264,11 +241,9 @@ def test_LASSO(dims, N=10, outdir=".", verbose=True, num_problems=30):
             p = generators.generate_lasso(n, num_problems=num_problems)
 
             def run():
-                solver = LassoSolver(
-                    p["A"], p["b"], reg=p["reg"], rho=0.4, max_iters=5000,
-                    check_stop=10, add_bias=True, eps_rel=1e-6,
-                    eps_abs=1e-6,
-                    check_cvxpy=False)  # (ref: testSolver.py:1142-1163)
+                solver = LassoSolver(p["A"], p["b"], reg=p["reg"],
+                                     **generators.RECIPE_SETTINGS["lasso"],
+                                     check_cvxpy=False)
                 solver.solve()
                 dt, (X, sols, gaps, iters) = _timed(solver.solve)
                 return dt, np.asarray(sols)
@@ -287,15 +262,15 @@ def test_LASSO(dims, N=10, outdir=".", verbose=True, num_problems=30):
             if verbose:
                 print(f"LASSO n={n} rep={i}: ours {dt:.3f}s "
                       f"mean obj {np.mean(v_ours[count, i]):.5f}")
-    write_results(os.path.join(outdir, "testResults_tpu_LASSOTimes.csv"),
+    write_results(os.path.join(outdir, "testResults_ours_LASSOTimes.csv"),
                   t_ours)
-    np.save(os.path.join(outdir, "testResults_tpu_LASSOValues.npy"), v_ours)
+    np.save(os.path.join(outdir, "testResults_ours_LASSOValues.npy"), v_ours)
     return t_ours, v_ours
 
 
 def test_LP_sparse(data_dir, data_files, N=10, outdir=".", verbose=True):
     """MIPLIB .npy instances (reference: testSolver.py:278-435)."""
-    from interiorpoint_tpu.utils.miplib import load_lp_npy
+    from interiorpoint.utils.miplib import load_lp_npy
 
     t_ours = np.zeros((len(data_files), N))
     v_ours = np.zeros((len(data_files), N))
@@ -304,15 +279,14 @@ def test_LP_sparse(data_dir, data_files, N=10, outdir=".", verbose=True):
         for i in range(N):
             solver = LPSolver(
                 c=c, A=A, b=b, C=C, d=d, lower_bound=lb, upper_bound=ub,
-                suppress_print=True, check_cvxpy=False, epsilon=1e-4,
-                mu=15, t0=1, max_inner_iters=20, max_outer_iters=10,
-                beta=0.5, alpha=0.05)
+                **generators.RECIPE_SETTINGS["lp"], suppress_print=True,
+                check_cvxpy=False)
             solver.solve()
             dt, val = _timed(solver.solve)
             t_ours[count, i], v_ours[count, i] = dt, val
             if verbose:
                 print(f"{fname} rep={i}: {dt:.3f}s val={val:.5f}")
-    write_results(os.path.join(outdir, "testResults_tpu_LP_sparse.csv"),
+    write_results(os.path.join(outdir, "testResults_ours_LP_sparse.csv"),
                   t_ours)
     return t_ours, v_ours
 
@@ -321,15 +295,15 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--suite", nargs="+",
                    default=["lp", "lasso", "qp", "socp"])
-    # default order: cheap/guaranteed suites first, the HBM-heaviest
-    # (SOCP, whose n=5000 cells have OOM'd before) last, so a worst-case
-    # device failure costs the fewest artifacts (round-4 VERDICT weak #2)
+    # default order: cheap suites first, the most memory-hungry (SOCP)
+    # last, so a worst-case device failure costs the fewest artifacts
     p.add_argument("--dims", nargs="+", type=int,
                    default=[100, 500, 1000])  # full ref sweep goes to 5000
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--outdir", type=str, default="benchmarks/results")
     p.add_argument("--no-oracle", action="store_true")
     args = p.parse_args()
+    enable_compile_cache()
     os.makedirs(args.outdir, exist_ok=True)
     # one suite's failure must not cost the others their CSVs; suites
     # run in the CLI order (cheapest-first lets a time-boxed sweep keep

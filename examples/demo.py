@@ -24,7 +24,7 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from interiorpoint_tpu import (LassoSolver, LPSolver, QPSolver,
+    from interiorpoint import (LassoSolver, LPSolver, QPSolver,
                                    SOCPSolver)
 
     rng = np.random.default_rng(1)
@@ -50,7 +50,7 @@ def main():
     print(f"outer iters    {lp.outer_iters}, newton per center: "
           f"{lp.inner_iters}")
     print(f"min dual       {lp.lam_star.min():.2e} (>= 0)")
-    from interiorpoint_tpu import certify
+    from interiorpoint import certify
     cert = certify(lp)   # in-framework KKT certificate (no oracle solve)
     print(f"KKT certified  stationarity {cert.stationarity:.2e}, "
           f"complementarity {cert.complementarity:.2e}, "

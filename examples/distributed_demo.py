@@ -1,16 +1,16 @@
-"""Multi-chip walkthrough: every parallel surface on one mesh.
+"""Multi-device walkthrough: every parallel surface on one mesh.
 
 Demonstrates the four distribution schemes (SURVEY.md §2.2 — all new
-TPU-native capability; the reference is single-GPU):
+capability; the reference is single-GPU):
 
-  1. dp     — a batch of LP instances vmapped + sharded over chips
+  1. dp     — a batch of LP instances vmapped + sharded over devices
   2. tp     — ONE huge LP with constraint rows sharded (psum/all_gather)
   3. ep     — ONE SOCP with the stacked cone tensors sharded
   4. sample — batched-ADMM LASSO with the sample axis sharded
 
-Runs anywhere: on a multi-chip TPU slice the mesh spans real chips; on
-a CPU-only host it uses a virtual 8-device mesh (the same programs,
-the same collectives).  Run: python examples/distributed_demo.py [--cpu]
+The mesh spans every device JAX finds: the GPUs of the host, or with
+``--cpu`` a virtual 8-device CPU mesh (the same programs, the same
+collectives).  Run: python examples/distributed_demo.py [--cpu]
 """
 
 import argparse
@@ -29,7 +29,7 @@ def main():
     args = p.parse_args()
 
     import jax
-    if args.cpu or jax.default_backend() != "tpu":
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)
     jax.config.update("jax_enable_x64", True)
@@ -37,18 +37,18 @@ def main():
     import jax.numpy as jnp
     from scipy.optimize import linprog
 
-    from interiorpoint_tpu.models.problem import make_lp
-    from interiorpoint_tpu.parallel import (
+    from interiorpoint.models.problem import make_lp
+    from interiorpoint.parallel import (
         make_mesh, solve_batch, solve_lasso_sharded,
         solve_lp_row_sharded, solve_socp_cone_sharded, stack_problems)
-    from interiorpoint_tpu.utils.config import AdmmConfig, SolverConfig
+    from interiorpoint.utils.config import AdmmConfig, SolverConfig
 
     ndev = len(jax.devices())
     rng = np.random.default_rng(0)
     print(f"devices: {ndev} × {jax.devices()[0].platform}")
 
     # ------------------------------------------------------------------
-    # 1. dp: a batch of LP instances, one per chip
+    # 1. dp: a batch of LP instances, one per device
     # ------------------------------------------------------------------
     print("\n[1] instance-parallel LP batch (dp)")
     mesh = make_mesh(ndev, ("batch",))
@@ -89,7 +89,7 @@ def main():
     ref = linprog(c, A_ub=C, b_ub=C @ xf + 0.5, A_eq=A, b_eq=A @ xf,
                   bounds=[(-3, 3)] * n, method="highs").fun
     print(f"    {k} inequality + {m} equality rows sharded over {ndev} "
-          f"chips (mixed-precision factors);")
+          f"devices (mixed-precision factors);")
     print(f"    objective {float(out['objective']):.6f} vs HiGHS "
           f"{ref:.6f}  ({out['newton_iters']} Newton iters)")
 
@@ -114,7 +114,7 @@ def main():
     x = np.asarray(out["x"])
     worst = max(np.linalg.norm(As[j] @ x + bs[j]) - cs[j] @ x - ds[j]
                 for j in range(K))
-    print(f"    {K} cones sharded over {ndev} chips (inert padding); "
+    print(f"    {K} cones sharded over {ndev} devices (inert padding); "
           f"objective {float(out['objective']):.6f}")
     print(f"    worst cone violation {worst:.2e}, equality residual "
           f"{np.linalg.norm(F @ x - F @ x0):.2e}")
@@ -171,8 +171,7 @@ def main():
           f"{out2['outer_iters']} total; objective "
           f"{float(out2['objective']):.6f} vs HiGHS {ref:.6f}")
 
-    print("\nall five schemes ran on the same mesh API — on a real "
-          "slice the collectives ride ICI.")
+    print("\nall five schemes ran on the same mesh API.")
 
 
 if __name__ == "__main__":

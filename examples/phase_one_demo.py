@@ -24,7 +24,7 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from interiorpoint_tpu.models.phase1 import PhaseOne, PhaseOneSolver
+    from interiorpoint.models.phase1 import PhaseOne, PhaseOneSolver
 
     print("=== Feasible polyhedron (triangle with slack) ===")
     G = np.array([[1.0, 3], [1, 1], [-1, 0], [0, -1]])

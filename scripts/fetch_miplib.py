@@ -15,7 +15,7 @@ import urllib.request
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from interiorpoint_tpu.utils.mps import mps_to_npy  # noqa: E402
+from interiorpoint.utils.mps import mps_to_npy  # noqa: E402
 
 URL = "https://miplib.zib.de/WebData/instances/{name}.mps.gz"
 INSTANCES = ("30n20b8", "aflow40b")

@@ -66,7 +66,7 @@ def make_flow_lp(n_nodes=40, n_arcs=120, seed=7):
 
 def main():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from interiorpoint_tpu.utils import miplib
+    from interiorpoint.utils import miplib
 
     out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(__file__), "..", "tests", "data", "miplib",

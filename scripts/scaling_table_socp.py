@@ -4,10 +4,10 @@ Measures the full distributed SOCP barrier solve
 (parallel/socp_dist.py solve_socp_cone_sharded) at 1/2/4/8 mesh devices
 on ONE fixed cone-heavy instance and reports Newton iterations/s and
 parallel efficiency vs the 1-device run — the same methodology as
-scripts/scaling_table.py for the row-sharded LP (BASELINE.md >=70%
-target).  On this machine the mesh is the virtual CPU mesh: numbers
+scripts/scaling_table.py for the row-sharded LP.  The mesh is the
+virtual CPU mesh: numbers
 validate the harness, the collective layout and iterate equivalence,
-not real ICI scaling.
+not the scaling of real cards.
 
 Usage: python scripts/scaling_table_socp.py [K] [out.csv]
 """
@@ -22,8 +22,8 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from interiorpoint_tpu.parallel.mesh import make_mesh  # noqa: E402
-from interiorpoint_tpu.parallel.socp_dist import (  # noqa: E402
+from interiorpoint.parallel.mesh import make_mesh  # noqa: E402
+from interiorpoint.parallel.socp_dist import (  # noqa: E402
     solve_socp_cone_sharded)
 
 K = int(sys.argv[1]) if len(sys.argv) > 1 else 64

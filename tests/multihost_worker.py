@@ -13,7 +13,7 @@ jax.config.update("jax_platforms", "cpu")
 
 pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 
-from interiorpoint_tpu.parallel.distributed import initialize  # noqa: E402
+from interiorpoint.parallel.distributed import initialize  # noqa: E402
 
 initialize(coordinator_address=f"localhost:{port}", num_processes=nproc,
            process_id=pid)
@@ -22,10 +22,10 @@ assert jax.device_count() == nproc * jax.local_device_count()
 
 import numpy as np  # noqa: E402
 
-from interiorpoint_tpu.parallel.distributed import (  # noqa: E402
+from interiorpoint.parallel.distributed import (  # noqa: E402
     solve_lp_row_sharded)
-from interiorpoint_tpu.parallel.mesh import make_mesh  # noqa: E402
-from interiorpoint_tpu.parallel.socp_dist import (  # noqa: E402
+from interiorpoint.parallel.mesh import make_mesh  # noqa: E402
+from interiorpoint.parallel.socp_dist import (  # noqa: E402
     solve_socp_cone_sharded)
 
 rng = np.random.default_rng(17)

@@ -1,12 +1,11 @@
-"""algorithm="auto": per-class engine routing from the round-4 v5e
-measurements (LP -> Mehrotra pd; QP -> barrier; SOCP -> barrier).  The explicit "barrier"/"pd" selections stay
-untouched — auto exists so the measured-fastest engine is one keyword
-away (round-3 VERDICT item 5)."""
+"""algorithm="auto": per-class engine routing (LP -> Mehrotra pd;
+QP -> pd; SOCP -> barrier).  The explicit "barrier"/"pd" selections stay
+untouched — auto exists so the chosen engine is one keyword away."""
 
 import numpy as np
 import pytest
 
-from interiorpoint_tpu import LPSolver, QPSolver, SOCPSolver
+from interiorpoint import LPSolver, QPSolver, SOCPSolver
 
 
 def _lp(algo, n=120):

@@ -3,8 +3,8 @@ reference's CVXPY feasibility check (LPSolver.py:471-505)."""
 import numpy as np
 import pytest
 
-from interiorpoint_tpu import LPSolver, QPSolver, SOCPSolver
-from interiorpoint_tpu.utils.certify import certify
+from interiorpoint import LPSolver, QPSolver, SOCPSolver
+from interiorpoint.utils.certify import certify
 
 
 def _lp(seed=11, n=20, m=14, k=8, **kw):

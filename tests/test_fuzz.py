@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from interiorpoint_tpu import LPSolver, QPSolver, SOCPSolver, certify
+from interiorpoint import LPSolver, QPSolver, SOCPSolver, certify
 
 # (n, m_eq, k_ineq, lb?, ub?) — every structural combination the LP/QP
 # constructors accept, including scalar-ish dims

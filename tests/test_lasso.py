@@ -6,8 +6,8 @@ oracle (reference: LassoSolver.py:545-581)."""
 import numpy as np
 import pytest
 
-from interiorpoint_tpu.models.lasso import LassoSolver, solve_lasso
-from interiorpoint_tpu.utils import oracle as oracle_check
+from interiorpoint.models.lasso import LassoSolver, solve_lasso
+from interiorpoint.utils import oracle as oracle_check
 
 
 def _gen_lasso(n=40, m=120, B=6, seed=0):
@@ -155,9 +155,9 @@ def test_lasso_example_data():
 
 
 def test_lasso_adaptive_rho_matches_plain():
-    """The ρ-ladder + over-relaxation defaults (ops/admm.py round-3
-    additions) must reach the same optimum as the reference-parity
-    fixed-ρ iteration, in fewer iterations."""
+    """The ρ-ladder + over-relaxation defaults (ops/admm.py) must reach
+    the same optimum as the reference-parity fixed-ρ iteration, in fewer
+    iterations."""
     A, b, reg = _gen_lasso(n=60, m=180, B=5, seed=3)
     kw = dict(reg=reg, rho=0.4, max_iters=8000, check_stop=10,
               eps_abs=1e-6, eps_rel=1e-6, check_cvxpy=False)
@@ -182,3 +182,27 @@ def test_lasso_adaptive_rho_chunked_matches_single():
     Xc, sc, _, _ = chunked.solve()
     np.testing.assert_allclose(sc, ss, rtol=1e-6)
     np.testing.assert_allclose(Xc, Xs, atol=1e-4)
+
+
+@pytest.mark.parametrize("bytes_limit,chunks", [(2**40, 1), (2**14, 5)])
+def test_lasso_chunks_follow_the_device_memory_limit(monkeypatch,
+                                                     bytes_limit, chunks):
+    """The sample chunking budget is a share of the device's reported
+    memory limit (utils/memory.py), not a fixed size."""
+    from interiorpoint import LassoSolver
+    from interiorpoint.utils import memory
+
+    monkeypatch.setattr(memory, "device_bytes_limit", lambda: bytes_limit)
+    rng = np.random.default_rng(0)
+    A = rng.random((60, 20))
+    b = rng.random((60, 24))
+    s = LassoSolver(A, b, reg=np.full(24, 0.05), max_iters=400,
+                    check_cvxpy=False, dtype="float64")
+    itemsize = 8
+    need = (3 * 21 * 24 + b.size + 60 * 21 + 21 ** 2) * itemsize
+    assert s.num_chunks == int(need // (bytes_limit / 2)) + 1 == chunks
+    s.solve()
+    ref = LassoSolver(A, b, reg=np.full(24, 0.05), max_iters=400,
+                      check_cvxpy=False, dtype="float64", num_chunks=1)
+    ref.solve()
+    np.testing.assert_allclose(s.solutions, ref.solutions, rtol=1e-5)

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from interiorpoint_tpu import LPSolver, solve_lp
-from interiorpoint_tpu.utils.config import SolverConfig
+from interiorpoint import LPSolver, solve_lp
+from interiorpoint.utils.config import SolverConfig
 
 
 def _gen_lp(n, m, k, seed=1):
@@ -178,3 +178,38 @@ def test_lp_float32_coarse():
     val = ls.solve()
     ref = _scipy_opt(c, A, b, C, d)
     assert abs(val - ref) / abs(ref) < 5e-2
+
+
+def _parity_lp(seed=11, n=30, m=12, k=20):
+    """Reference-recipe LP with a 0.5 margin on Cx ≤ d, so x_feas is a
+    strictly interior start, and a start that violates Cx ≤ d inside the
+    bounds, so the barrier runs phase one from it."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-2, 2, (m, n))
+    C = rng.uniform(-2, 2, (k, n))
+    x_feas = rng.uniform(-2, 2, n)
+    c = rng.uniform(-2, 2, n)
+    d = C @ x_feas + 0.5
+    x_bad = 2.5 * np.sign(C[0])
+    assert (C @ x_bad > d).any()
+    return c, A, A @ x_feas, C, d, x_feas, x_bad
+
+
+@pytest.mark.parametrize("start", ["feasible", "phase_one"])
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("algorithm", ["barrier", "pd"])
+def test_lp_engine_parity_vs_highs(algorithm, reduced, start):
+    """Every LP route — barrier or pd, null-space or full-space, from an
+    interior or an infeasible start — reaches the float64 HiGHS optimum."""
+    c, A, b, C, d, x_feas, x_bad = _parity_lp()
+    ls = LPSolver(c=c, A=A, b=b, C=C, d=d, lower_bound=-3, upper_bound=3,
+                  suppress_print=True, check_cvxpy=False, epsilon=1e-9,
+                  algorithm=algorithm, reduced=reduced)
+    val = ls.solve(x0=x_feas if start == "feasible" else x_bad)
+    ref = _scipy_opt(c, A, b, C, d)
+    assert abs(val - ref) <= 1e-6 * (1 + abs(ref))
+    x = np.asarray(ls.xstar)
+    assert np.abs(A @ x - b).max() < 1e-6
+    assert (C @ x - d).max() < 1e-7
+    if algorithm == "barrier":
+        assert ls.last_metrics["phase1_ran"] == (start == "phase_one")

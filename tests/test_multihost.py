@@ -1,6 +1,5 @@
-"""True multi-PROCESS distributed solves (SURVEY.md §2.2 comm backend;
-round-1 VERDICT partial: ``parallel.distributed.initialize`` was never
-exercised).
+"""True multi-PROCESS distributed solves (SURVEY.md §2.2 comm backend),
+exercising ``parallel.distributed.initialize``.
 
 Two OS processes each own one CPU device, initialize jax.distributed
 against a shared coordinator, and run the row-sharded LP and

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from interiorpoint_tpu.models.problem import make_lp, make_qp
-from interiorpoint_tpu.ops.barrier import (
+from interiorpoint.models.problem import make_lp, make_qp
+from interiorpoint.ops.barrier import (
     full_linear_slacks,
     make_phase1_linear_oracle,
     make_qp_oracle,
@@ -147,75 +147,89 @@ def test_full_linear_slacks_order():
     np.testing.assert_allclose(s[k + n:], np.asarray(x - prob.lb))
 
 
-@pytest.mark.parametrize("is_qp", [False, True])
-def test_lp_qp_oracle_dd_path_matches_f64(is_qp):
-    """The dd contraction path (ops/barrier.py use_dd) must agree with the
-    plain-f64 oracle: grad/objective/slacks to dd accuracy, Hessian to
-    f32-Gram (preconditioner) accuracy."""
-    rng = np.random.default_rng(12)
-    n, m, k = 14, 6, 9
-    C = rng.standard_normal((k, n))
-    xf = rng.standard_normal(n) * 0.2
-    d = C @ xf + 1.0
-    lb, ub = np.full(n, -3.0), np.full(n, 3.0)
-    if is_qp:
-        Pp = rng.standard_normal((m, n))
-        P = Pp.T @ Pp + np.eye(n)
-        q = rng.standard_normal(n)
-        prob = make_qp(P, q, None, None, C, d, lb, ub, dtype=jnp.float64)
+# ---------------------------------------------------------------------------
+# Matmul precision of the solve paths: on a GPU a float32 dot left at the
+# default precision may run in TF32.  Every float32 dot_general in the
+# jitted solve programs must carry Precision.HIGHEST (utils/precision.py).
+# ---------------------------------------------------------------------------
+
+
+def _dot_precisions(jaxpr, out):
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append((eqn.params["precision"],
+                        tuple(v.aval.dtype for v in eqn.invars)))
+        for value in eqn.params.values():
+            for sub in (value if isinstance(value, (list, tuple))
+                        else [value]):
+                if hasattr(sub, "eqns"):
+                    _dot_precisions(sub, out)
+                elif hasattr(getattr(sub, "jaxpr", None), "eqns"):
+                    _dot_precisions(sub.jaxpr, out)
+    return out
+
+
+def _spy(monkeypatch, module, name, static, seen):
+    """Replace ``module.name`` (a jitted entry) by a wrapper that records
+    the dots of the program it traces, with positions ``static`` held
+    static, then runs the entry as before."""
+    core = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        dyn = [i for i in range(len(args)) if i not in static]
+
+        def program(*values):
+            full = list(args)
+            for i, v in zip(dyn, values):
+                full[i] = v
+            return core(*full, **kwargs)
+
+        traced = jax.make_jaxpr(program)(*[args[i] for i in dyn])
+        _dot_precisions(traced.jaxpr, seen)
+        return core(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, wrapped)
+
+
+def _solve_float32(kind, algorithm):
+    from interiorpoint import LassoSolver, LPSolver, QPSolver, SOCPSolver
+    from interiorpoint.utils import generators as g
+
+    rng = np.random.RandomState(5)
+    common = dict(check_cvxpy=False, dtype="float32")
+    if kind == "lasso":
+        p = g.generate_lasso(20, num_problems=3, rng=rng)
+        LassoSolver(p["A"], p["b"], reg=p["reg"], max_iters=50,
+                    **common).solve()
+        return
+    p = {"lp": g.generate_lp, "qp": g.generate_qp,
+         "socp": g.generate_socp}[kind](20, rng=rng)
+    if kind == "socp":
+        p["F"], p["g"] = p["F"][:4], p["g"][:4]
     else:
-        c = rng.standard_normal(n)
-        prob = make_lp(c, None, None, C, d, lb, ub, dtype=jnp.float64)
-
-    o64 = make_qp_oracle(prob, dd_override=False)
-    odd = make_qp_oracle(prob, dd_override=True)
-    x = jnp.asarray(xf, jnp.float64)
-    t = jnp.asarray(11.0, jnp.float64)
-
-    np.testing.assert_allclose(odd.grad(x, t), o64.grad(x, t),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(odd.newton_obj(x, t), o64.newton_obj(x, t),
-                               rtol=1e-13)
-    np.testing.assert_allclose(odd.min_slack(x), o64.min_slack(x),
-                               rtol=1e-13)
-    H64, Hdd = o64.hess(x, t), odd.hess(x, t)
-    scale = np.linalg.norm(np.asarray(H64))
-    assert np.linalg.norm(np.asarray(Hdd - H64)) <= 1e-6 * scale
-
-    g = np.asarray(o64.grad(x, t))
-    dx = -jnp.asarray(np.linalg.solve(np.asarray(H64), g))
-    sigmas = jnp.asarray(0.5 ** np.arange(8), jnp.float64)
-    ok64, v64 = o64.ls_objs(x, dx, t, sigmas)
-    okdd, vdd = odd.ls_objs(x, dx, t, sigmas)
-    np.testing.assert_array_equal(np.asarray(okdd), np.asarray(ok64))
-    np.testing.assert_allclose(np.asarray(vdd)[np.asarray(ok64)],
-                               np.asarray(v64)[np.asarray(ok64)],
-                               rtol=1e-11, atol=1e-9)
+        p["d"] = p["d"] + 0.5       # an interior: float32 phase one
+    cls = {"lp": LPSolver, "qp": QPSolver, "socp": SOCPSolver}[kind]
+    cls(**p, **common, suppress_print=True, algorithm=algorithm,
+        epsilon=1e-3).solve()
 
 
-def test_phase1_lin_form_matches_oracle():
-    """The phase-one oracle's augmented linear form ([C | -1] z <= d,
-    cost e_s) must agree with its own slack/gradient definitions — the
-    fused Pallas kernel consumes the form on TPU (round 3)."""
-    rng = np.random.default_rng(7)
-    k, r = 12, 5
-    C = jnp.asarray(rng.standard_normal((k, r)))
-    d = jnp.asarray(rng.standard_normal(k))
-    prob = make_lp(c=rng.standard_normal(r), C=C, d=d)
-    oracle = make_phase1_linear_oracle(prob)
-    Cp, dp, cost, P = oracle.lin_form
-    assert P is None and Cp.shape == (k, r + 1)
+@pytest.mark.parametrize("kind,algorithm", [
+    ("lp", "barrier"), ("lp", "pd"), ("qp", "barrier"), ("qp", "pd"),
+    ("socp", "barrier"), ("socp", "pd"), ("lasso", "admm")])
+def test_float32_dots_ask_for_highest_precision(monkeypatch, kind,
+                                                algorithm):
+    from interiorpoint.models import base, lasso, socp
+    from interiorpoint.ops import admm
 
-    x = jnp.asarray(rng.standard_normal(r))
-    s = jnp.asarray(float(jnp.max(C @ x - d)) + 2.0)  # strictly feasible
-    z = jnp.concatenate([x, s[None]])
-    # slack parity: d' - C' z == the oracle's slack parts
-    slack_form = dp - Cp @ z
-    np.testing.assert_allclose(np.asarray(slack_form),
-                               np.asarray(d - C @ x + s), rtol=1e-14)
-    # gradient parity: t*cost + C'^T (1/slack) == oracle.grad
-    t = 3.7
-    g_form = t * cost + Cp.T @ (1.0 / slack_form)
-    np.testing.assert_allclose(np.asarray(g_form),
-                               np.asarray(oracle.grad(z, t)),
-                               rtol=1e-12, atol=1e-12)
+    seen = []
+    _spy(monkeypatch, base, "_barrier_core", {5, 6, 7, 8, 9}, seen)
+    _spy(monkeypatch, base, "_pd_core", {2}, seen)
+    _spy(monkeypatch, socp, "_socp_pd_core", {4}, seen)
+    _spy(monkeypatch, admm, "admm_prepare", {1}, seen)
+    _spy(monkeypatch, lasso, "admm_core", {3, 4}, seen)
+    _solve_float32(kind, algorithm)
+    f32 = [prec for prec, dtypes in seen
+           if any(dt == jnp.float32 for dt in dtypes)]
+    assert f32, "no float32 dot traced: the spy missed the solve program"
+    highest = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    assert all(prec == highest for prec in f32), set(f32)

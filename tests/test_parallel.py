@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import linprog
 
-from interiorpoint_tpu.models.problem import make_lp
-from interiorpoint_tpu.parallel.batch import (
+from interiorpoint.models.problem import make_lp
+from interiorpoint.parallel.batch import (
     solve_batch, solve_lasso_sharded, stack_problems)
-from interiorpoint_tpu.parallel.distributed import (
+from interiorpoint.parallel.distributed import (
     row_sharded_lp_newton_step, shard_rows, solve_lp_row_sharded,
     solve_qp_row_sharded)
-from interiorpoint_tpu.parallel.mesh import make_mesh
-from interiorpoint_tpu.utils.config import AdmmConfig, SolverConfig
+from interiorpoint.parallel.mesh import make_mesh
+from interiorpoint.utils.config import AdmmConfig, SolverConfig
 
 
 def _gen_lp(n, m, k, seed):
@@ -62,7 +62,7 @@ def test_lasso_sample_sharded_matches_single_device():
     cfg = AdmmConfig(eps_abs=1e-7, eps_rel=1e-7, max_iters=4000,
                      dtype="float64")
     res_sharded = solve_lasso_sharded(A, b, reg, cfg, mesh)
-    from interiorpoint_tpu.models.lasso import solve_lasso
+    from interiorpoint.models.lasso import solve_lasso
     res_single = solve_lasso(A, b, reg, cfg=cfg)
     np.testing.assert_allclose(np.asarray(res_sharded.solutions),
                                np.asarray(res_single.solutions), rtol=1e-9)
@@ -97,8 +97,8 @@ def test_row_sharded_newton_step_matches_single_device():
     )
 
     # single-device replica of the same math
-    from interiorpoint_tpu.ops.barrier import make_qp_oracle
-    from interiorpoint_tpu.ops.kkt import solve_kkt_eq
+    from interiorpoint.ops.barrier import make_qp_oracle
+    from interiorpoint.ops.kkt import solve_kkt_eq
     prob = make_lp(c, A, b, C, d, lb, ub)
     oracle = make_qp_oracle(prob, try_diag=False)
     g = oracle.grad(x, t)
@@ -128,9 +128,8 @@ def test_row_sharded_newton_step_matches_single_device():
 
 
 def test_row_sharded_full_solve_matches_scipy():
-    """Full distributed barrier solve (round-1 VERDICT missing #4 /
-    next #5): row counts NOT divisible by the mesh, bounds present, must
-    match the HiGHS optimum."""
+    """Full distributed barrier solve: row counts NOT divisible by the
+    mesh, bounds present, must match the HiGHS optimum."""
     mesh = make_mesh(8, ("rows",))
     rng = np.random.default_rng(17)
     n, m, k = 40, 29, 27   # neither m nor k divides 8
@@ -211,7 +210,7 @@ def test_row_sharded_qp_matches_slsqp():
 def test_dist_cholesky_matches_dense():
     """parallel/chol.py block-cyclic factor vs jnp.linalg.cholesky on
     the virtual mesh: odd sizes, several block widths, both dtypes."""
-    from interiorpoint_tpu.parallel.chol import dist_cholesky
+    from interiorpoint.parallel.chol import dist_cholesky
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
@@ -458,7 +457,7 @@ def test_batched_socp_sharded_matches_slsqp():
     instance must match its own SLSQP optimum."""
     from scipy.optimize import minimize
 
-    from interiorpoint_tpu.models.problem import make_socp
+    from interiorpoint.models.problem import make_socp
 
     mesh = make_mesh(8, ("batch",))
     n, K, M = 10, 3, 4

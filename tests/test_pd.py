@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from interiorpoint_tpu import LPSolver, QPSolver, certify
+from interiorpoint import LPSolver, QPSolver, certify
 
 # (n, m_eq, k_ineq, lb?, ub?) — structural edge cases as in test_fuzz.py
 SHAPES = [
@@ -150,7 +150,7 @@ def test_pd_checkpoint_and_warm_solve_surface():
     equivalent barrier parameter m/gap.  The realistic resume flow is a
     LOOSE pd solve refined by a barrier warm start (a fully converged pd
     iterate sits on the boundary, outside the barrier's domain)."""
-    from interiorpoint_tpu.utils import checkpoint
+    from interiorpoint.utils import checkpoint
 
     rng = np.random.default_rng(11)
     n, k = 30, 12
@@ -185,10 +185,10 @@ def test_pd_full_space_equality_path():
     """pd_solve's in-engine Schur elimination (A, b passed directly, no
     null-space reduction) must match the reduced-path driver solve."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.models.problem import LPProblem
-    from interiorpoint_tpu.models.reduced import _reduced_ineq_block
-    from interiorpoint_tpu.ops.pd import pd_solve
-    from interiorpoint_tpu.utils.config import SolverConfig
+    from interiorpoint.models.problem import LPProblem
+    from interiorpoint.models.reduced import _reduced_ineq_block
+    from interiorpoint.ops.pd import pd_solve
+    from interiorpoint.utils.config import SolverConfig
 
     rng = np.random.default_rng(21)
     n, m, k = 30, 10, 12
@@ -222,10 +222,10 @@ def test_pd_batched_solves_match_scipy():
     """solve_batch(algorithm='pd') on the 8-device mesh: every instance
     matches its own HiGHS optimum (full-space pd under vmap + sharding)."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.models.problem import make_lp
-    from interiorpoint_tpu.parallel.batch import solve_batch, stack_problems
-    from interiorpoint_tpu.parallel.mesh import make_mesh
-    from interiorpoint_tpu.utils.config import SolverConfig
+    from interiorpoint.models.problem import make_lp
+    from interiorpoint.parallel.batch import solve_batch, stack_problems
+    from interiorpoint.parallel.mesh import make_mesh
+    from interiorpoint.utils.config import SolverConfig
 
     mesh = make_mesh(8, ("batch",))
     probs, x0s, refs = [], [], []
@@ -256,9 +256,9 @@ def test_pd_iteration_cap_and_checkpoint_guards():
     pd_max_iters is the constructor knob; checkpoint_path raises (no
     silent no-op); batched pd rejects ±inf bounds up front."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.models.problem import make_lp
-    from interiorpoint_tpu.parallel.batch import solve_batch, stack_problems
-    from interiorpoint_tpu.utils.config import SolverConfig
+    from interiorpoint.models.problem import make_lp
+    from interiorpoint.parallel.batch import solve_batch, stack_problems
+    from interiorpoint.utils.config import SolverConfig
 
     rng = np.random.default_rng(31)
     n, k = 20, 10
@@ -290,7 +290,7 @@ def test_pd_iteration_cap_and_checkpoint_guards():
 def test_pd_functional_entries():
     """solve_lp/solve_qp/solve_socp accept algorithm='pd' and return the
     raw PD result pytrees."""
-    from interiorpoint_tpu import solve_lp, solve_qp, solve_socp
+    from interiorpoint import solve_lp, solve_qp, solve_socp
 
     rng = np.random.default_rng(3)
     n, m, k = 20, 6, 8
@@ -331,3 +331,28 @@ def test_pd_rejects_bad_algorithm_and_unconstrained():
                  check_cvxpy=False, algorithm="pd")
     with pytest.raises(ValueError, match="pd"):
         s.solve()
+
+
+def test_pd_batch_takes_the_exact_fallback_on_float32_overflow():
+    """Late in some solves κ(H)·eps32 ≫ 1 and the mixed factor's float32
+    solve overflows, leaving the refinement residual NaN; the exact
+    float64 fallback must catch that.  Instance 130 of this seeded batch
+    once stopped unconverged at iteration 12 (gap 1.1) for want of it."""
+    import jax.numpy as jnp
+    from interiorpoint.models.problem import make_lp
+    from interiorpoint.parallel import solve_batch, stack_problems
+    from interiorpoint.utils.config import SolverConfig
+    from interiorpoint.utils.generators import RECIPE_SETTINGS, generate_lp
+
+    rng = np.random.RandomState(3)
+    raw = [generate_lp(100, rng=rng) for _ in range(132)][130:]
+    batch = stack_problems([make_lp(p["c"], p["A"], p["b"], p["C"], p["d"],
+                                    -3.0, 3.0, dtype=jnp.float64)
+                            for p in raw])
+    cfg = SolverConfig(dtype="float64", **RECIPE_SETTINGS["lp"])
+    res = solve_batch(batch, jnp.zeros((2, 100)), cfg, algorithm="pd")
+    assert bool(np.all(np.asarray(res.converged)))
+    for p, z in zip(raw, np.asarray(res.z)):
+        ref = linprog(p["c"], A_ub=p["C"], b_ub=p["d"], A_eq=p["A"],
+                      b_eq=p["b"], bounds=(-3, 3), method="highs").fun
+        assert abs(p["c"] @ z - ref) <= 1e-4 * (1 + abs(ref))

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog, minimize
 
-from interiorpoint_tpu.parallel.mesh import make_mesh
-from interiorpoint_tpu.parallel import (solve_lp_row_sharded,
+from interiorpoint.parallel.mesh import make_mesh
+from interiorpoint.parallel import (solve_lp_row_sharded,
                                         solve_pd_row_sharded,
                                         solve_qp_row_sharded)
 
@@ -109,3 +109,23 @@ def test_pd_dist_qp_dispatch():
     pd = solve_qp_row_sharded(mesh, P, c, A, b, C, d, lb=-3.0, ub=3.0,
                               x0=xf, epsilon=1e-8, algorithm="pd")
     assert pd["objective"] == pytest.approx(bar["objective"], rel=1e-6)
+
+
+def test_pd_dist_qp_recipe_stays_finite_when_schur_goes_singular():
+    """The QP benchmark recipe at n = 1000: late Mehrotra iterations
+    leave the Schur complement A·H⁻¹·Aᵀ numerically singular.  The
+    replicated factor's jitter ladder must keep the direction finite,
+    and the answer must match the one-card reduced solve."""
+    from interiorpoint import QPSolver
+    from interiorpoint.utils.generators import RECIPE_SETTINGS, generate_qp
+
+    p = generate_qp(1000, rng=np.random.RandomState(1))
+    mesh = make_mesh(4, ("rows",))
+    res = solve_qp_row_sharded(mesh, p["P"], p["q"], p["A"], p["b"],
+                               p["C"], p["d"], lb=-3.0, ub=3.0,
+                               epsilon=1e-8, algorithm="pd")
+    ref = QPSolver(**p, **RECIPE_SETTINGS["qp"], suppress_print=True,
+                   check_cvxpy=False, dtype="float64", algorithm="pd").solve()
+    f = float(res["objective"])
+    assert np.isfinite(f)
+    assert abs(f - ref) <= 1e-8 * (1 + abs(ref))

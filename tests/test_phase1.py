@@ -5,7 +5,7 @@ against both the legacy Gx ≤ h API and the current PhaseOneSolver."""
 import numpy as np
 import pytest
 
-from interiorpoint_tpu.models.phase1 import PhaseOne, PhaseOneSolver
+from interiorpoint.models.phase1 import PhaseOne, PhaseOneSolver
 
 
 def test_legacy_initialized_inside_set():

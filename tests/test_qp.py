@@ -6,7 +6,7 @@ comparison (reference: QPSolver.py:457-491)."""
 import numpy as np
 import pytest
 
-from interiorpoint_tpu import QPSolver, solve_qp
+from interiorpoint import QPSolver, solve_qp
 
 
 def _gen_qp(n, m, k, seed=1):
@@ -115,3 +115,49 @@ def test_solve_qp_functional():
     x = np.asarray(res.x)
     ref, _ = _active_set_polish(P, q, A, b, C, d, x)
     assert abs(float(res.value) - ref) / max(abs(ref), 1.0) < 1e-6
+
+
+def _slsqp_qp(P, q, A, b, C, d, x_start, lb=-3.0, ub=3.0):
+    """Plain float64 reference: SciPy's SLSQP on the same QP."""
+    from scipy.optimize import minimize
+
+    cons = [{"type": "eq", "fun": lambda x: A @ x - b, "jac": lambda x: A},
+            {"type": "ineq", "fun": lambda x: d - C @ x,
+             "jac": lambda x: -C}]
+    res = minimize(lambda x: 0.5 * x @ P @ x + q @ x, x_start,
+                   jac=lambda x: P @ x + q, method="SLSQP",
+                   bounds=[(lb, ub)] * len(q), constraints=cons,
+                   options={"maxiter": 1000, "ftol": 1e-12})
+    assert res.success
+    return res.fun
+
+
+@pytest.mark.parametrize("start", ["feasible", "phase_one"])
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("algorithm", ["barrier", "pd"])
+def test_qp_engine_parity_vs_slsqp(algorithm, reduced, start):
+    """Every QP route — barrier or pd, null-space or full-space, from an
+    interior or an infeasible start — reaches the SLSQP optimum."""
+    rng = np.random.default_rng(12)
+    n, m, k = 24, 10, 16
+    Pp = rng.uniform(-2, 2, (m, n))
+    P = Pp.T @ Pp + np.eye(n)
+    q = rng.uniform(-2, 2, n)
+    A = rng.uniform(-2, 2, (m, n))
+    C = rng.uniform(-2, 2, (k, n))
+    x_feas = rng.uniform(-2, 2, n)
+    b, d = A @ x_feas, C @ x_feas + 0.5
+    x_bad = 2.5 * np.sign(C[0])
+    assert (C @ x_bad > d).any()
+    qp = QPSolver(P=P, q=q, A=A, b=b, C=C, d=d, lower_bound=-3,
+                  upper_bound=3, suppress_print=True, check_cvxpy=False,
+                  epsilon=1e-9, t0=0.01, max_inner_iters=100,
+                  algorithm=algorithm, reduced=reduced)
+    val = qp.solve(x0=x_feas if start == "feasible" else x_bad)
+    ref = _slsqp_qp(P, q, A, b, C, d, x_feas)
+    assert abs(val - ref) <= 1e-6 * (1 + abs(ref))
+    x = np.asarray(qp.xstar)
+    assert np.abs(A @ x - b).max() < 1e-6
+    assert (C @ x - d).max() < 1e-7
+    if algorithm == "barrier":
+        assert qp.last_metrics["phase1_ran"] == (start == "phase_one")

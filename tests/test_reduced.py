@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import linprog
 
-from interiorpoint_tpu import LPSolver, QPSolver, SOCPSolver
-from interiorpoint_tpu.ops.nullspace import affine_elimination
+from interiorpoint import LPSolver, QPSolver, SOCPSolver
+from interiorpoint.ops.nullspace import affine_elimination
 
 
 def _gen_lp(n, m, k, seed=1):

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import pytest
 from scipy.optimize import minimize
 
-from interiorpoint_tpu.models.problem import make_socp
-from interiorpoint_tpu.models.socp import SOCPSolver, solve_socp
-from interiorpoint_tpu.ops.socp import (
+from interiorpoint.models.problem import make_socp
+from interiorpoint.models.socp import SOCPSolver, solve_socp
+from interiorpoint.ops.socp import (
     make_phase1_socp_oracle,
     make_socp_oracle,
     socp_full_slacks,
@@ -237,108 +237,6 @@ def test_solve_socp_functional():
     assert int(res.outer_iters) > 0
 
 
-# ---------------------------------------------------------------------------
-# dd (split-f32) oracle path: must agree with the plain-f64 oracle to dd
-# accuracy for grad/objective/line-search, and to f32-curvature accuracy
-# for the Hessian (ops/socp.py dd contraction paths).
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("bounds", [False, True])
-def test_socp_oracle_dd_path_matches_f64(bounds):
-    P, q, A, b, c, d, lb, ub, x0 = _random_socp(
-        n=12, m=7, K=3, bounds=bounds, seed=3)
-    prob = make_socp(A, b, c, d, P, q, None, None, lb, ub,
-                     dtype=jnp.float64)
-    o64 = make_socp_oracle(prob, dd=False)
-    odd = make_socp_oracle(prob, dd=True)
-    x = jnp.asarray(x0, jnp.float64)
-    t = jnp.asarray(7.5, jnp.float64)
-
-    g64, gdd = o64.grad(x, t), odd.grad(x, t)
-    np.testing.assert_allclose(gdd, g64, rtol=1e-12, atol=1e-12)
-
-    np.testing.assert_allclose(odd.newton_obj(x, t), o64.newton_obj(x, t),
-                               rtol=1e-13)
-    np.testing.assert_allclose(odd.min_slack(x), o64.min_slack(x),
-                               rtol=1e-13)
-
-    H64, Hdd = o64.hess(x, t), odd.hess(x, t)
-    scale = np.linalg.norm(np.asarray(H64))
-    assert np.linalg.norm(np.asarray(Hdd - H64)) <= 1e-6 * scale
-
-    dx = -jnp.asarray(np.linalg.solve(np.asarray(H64), np.asarray(g64)))
-    sigmas = jnp.asarray(0.5 ** np.arange(8), jnp.float64)
-    ok64, v64 = o64.ls_objs(x, dx, t, sigmas)
-    okdd, vdd = odd.ls_objs(x, dx, t, sigmas)
-    np.testing.assert_array_equal(np.asarray(okdd), np.asarray(ok64))
-    np.testing.assert_allclose(np.asarray(vdd)[np.asarray(ok64)],
-                               np.asarray(v64)[np.asarray(ok64)],
-                               rtol=1e-11, atol=1e-9)
-
-
-def test_socp_solve_with_dd_oracle_matches_slsqp():
-    """End-to-end solve with the dd oracle forced on (CPU)."""
-    import interiorpoint_tpu.ops.socp as socp_ops
-
-    P, q, A, b, c, d, lb, ub, x0 = _random_socp(n=10, m=6, K=3, seed=5)
-    orig = socp_ops._use_dd
-    socp_ops._use_dd = lambda prob: True
-    try:
-        s = SOCPSolver(P=P, q=q, A=A, b=b, c=c, d=d,
-                       lower_bound=None, upper_bound=None,
-                       suppress_print=True, check_cvxpy=False,
-                       epsilon=1e-8, x0=x0, t0="auto")
-        val = s.solve()
-    finally:
-        socp_ops._use_dd = orig
-
-    def f(x):
-        return 0.5 * x @ (P @ x) + q @ x
-
-    cons = [
-        {"type": "ineq",
-         "fun": (lambda x, Ai=Ai, bi=bi, ci=ci, di=di:
-                 ci @ x + di - np.linalg.norm(Ai @ x + bi))}
-        for Ai, bi, ci, di in zip(A, b, c, d)
-    ]
-    ref = minimize(f, x0, constraints=cons, method="SLSQP",
-                   options={"maxiter": 500, "ftol": 1e-12})
-    assert abs(val - ref.fun) <= 1e-5 * max(1.0, abs(ref.fun))
-
-
-def test_socp_phase1_oracle_dd_path_matches_f64():
-    P, q, A, b, c, d, lb, ub, x0 = _random_socp(
-        n=12, m=7, K=3, bounds=True, seed=9)
-    prob = make_socp(A, b, c, d, P, q, None, None, lb, ub,
-                     dtype=jnp.float64)
-    o64 = make_phase1_socp_oracle(prob, dd=False)
-    odd = make_phase1_socp_oracle(prob, dd=True)
-    z = jnp.concatenate([jnp.asarray(x0, jnp.float64),
-                         jnp.asarray([2.5], jnp.float64)])
-    t = jnp.asarray(3.0, jnp.float64)
-
-    np.testing.assert_allclose(odd.grad(z, t), o64.grad(z, t),
-                               rtol=1e-12, atol=1e-12)
-    np.testing.assert_allclose(odd.newton_obj(z, t), o64.newton_obj(z, t),
-                               rtol=1e-13)
-    np.testing.assert_allclose(odd.min_slack(z), o64.min_slack(z),
-                               rtol=1e-13)
-    H64, Hdd = o64.hess(z, t), odd.hess(z, t)
-    scale = np.linalg.norm(np.asarray(H64))
-    assert np.linalg.norm(np.asarray(Hdd - H64)) <= 1e-6 * scale
-
-    dz = jnp.asarray(np.linalg.solve(np.asarray(H64),
-                                     -np.asarray(o64.grad(z, t))))
-    sigmas = jnp.asarray(0.5 ** np.arange(8), jnp.float64)
-    ok64, v64 = o64.ls_objs(z, dz, t, sigmas)
-    okdd, vdd = odd.ls_objs(z, dz, t, sigmas)
-    np.testing.assert_array_equal(np.asarray(okdd), np.asarray(ok64))
-    np.testing.assert_allclose(np.asarray(vdd)[np.asarray(ok64)],
-                               np.asarray(v64)[np.asarray(ok64)],
-                               rtol=1e-11, atol=1e-9)
-
-
 def test_socp_phase1_recovers_from_negative_rhs_start():
     """The reference's phase one cannot start from x0 with c_i.x + d_i < 0
     (unshifted rhs domain entries, FunctionManager.py:1258-1262); ours
@@ -375,3 +273,55 @@ def test_socp_phase1_recovers_from_negative_rhs_start():
     ref = minimize(f, xf, constraints=cons, method="SLSQP",
                    options={"maxiter": 800, "ftol": 1e-12})
     assert abs(val - ref.fun) <= 1e-5 * max(1.0, abs(ref.fun))
+
+
+@pytest.mark.parametrize("start", ["feasible", "phase_one"])
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("algorithm", ["barrier", "pd"])
+def test_socp_engine_parity_vs_slsqp(algorithm, reduced, start):
+    """Every SOCP route — barrier or pd, null-space or full-space, from an
+    interior or a cone-infeasible start — reaches the SLSQP optimum."""
+    P, q, A, b, c, d, lb, ub, x0 = _random_socp(n=10, m=5, K=3, seed=8)
+    rng = np.random.default_rng(9)
+    F = rng.normal(size=(3, 10))
+    g = F @ x0
+    cons = [{"type": "ineq",
+             "fun": (lambda x, Ai=Ai, bi=bi, ci=ci, di=di:
+                     ci @ x + di - np.linalg.norm(Ai @ x + bi))}
+            for Ai, bi, ci, di in zip(A, b, c, d)]
+    cons.append({"type": "eq", "fun": lambda x: F @ x - g})
+    ref = minimize(lambda x: 0.5 * x @ P @ x + q @ x, x0, method="SLSQP",
+                   constraints=cons,
+                   options={"maxiter": 1000, "ftol": 1e-12})
+    assert ref.success
+    # x0 is interior to every cone (margin 1); 40 units away along a
+    # random direction some cone is violated
+    start_x = x0 if start == "feasible" else x0 + 40.0 * rng.normal(size=10)
+    feasible = all(f["fun"](start_x) > 0 for f in cons[:-1])
+    assert feasible == (start == "feasible")
+    s = SOCPSolver(P=P, q=q, A=A, b=b, c=c, d=d, F=F, g=g,
+                   lower_bound=None, upper_bound=None, suppress_print=True,
+                   check_cvxpy=False, epsilon=1e-9, max_inner_iters=100,
+                   x0=start_x, algorithm=algorithm, reduced=reduced)
+    val = s.solve()
+    assert abs(val - ref.fun) <= 1e-6 * (1 + abs(ref.fun))
+    assert np.abs(F @ np.asarray(s.xstar) - g).max() < 1e-6
+
+
+@pytest.mark.parametrize("bytes_limit,cached", [(2**40, True), (2**10, False)])
+def test_socp_curvature_cache_follows_device_memory(monkeypatch, bytes_limit,
+                                                    cached):
+    """The per-cone AᵀA + ccᵀ cache is kept only when it fits a share of
+    the device's reported memory limit; both forms give one Hessian."""
+    from interiorpoint.ops import socp as socp_ops
+    from interiorpoint.utils import memory
+
+    P, q, A, b, c, d, lb, ub, x0 = _random_socp(bounds=True)
+    prob = make_socp(A, b, c, d, P, q, lb=lb, ub=ub)
+    H_ref = np.asarray(make_socp_oracle(prob).hess(jnp.asarray(x0),
+                                                   jnp.asarray(2.0)))
+    monkeypatch.setattr(memory, "device_bytes_limit", lambda: bytes_limit)
+    assert (socp_ops._make_ata_cct(prob) is not None) == cached
+    H = np.asarray(make_socp_oracle(prob).hess(jnp.asarray(x0),
+                                               jnp.asarray(2.0)))
+    np.testing.assert_allclose(H, H_ref, rtol=1e-10, atol=1e-10)

@@ -1,14 +1,14 @@
 """Cone-sharded distributed SOCP solve on the virtual 8-device CPU mesh:
 cross-checked against scipy SLSQP ground truth and the single-chip solver
 (the same validation strategy as tests/test_socp.py; the distribution
-scheme itself is new TPU-native capability, SURVEY.md §2.2)."""
+scheme itself is new capability, SURVEY.md §2.2)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 from scipy.optimize import minimize
 
-from interiorpoint_tpu.parallel.mesh import make_mesh
-from interiorpoint_tpu.parallel.socp_dist import solve_socp_cone_sharded
+from interiorpoint.parallel.mesh import make_mesh
+from interiorpoint.parallel.socp_dist import solve_socp_cone_sharded
 
 
 def _gen_socp(n=30, K=5, M=8, m_eq=4, seed=0, bounds=True):

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from scipy.optimize import minimize
 
-from interiorpoint_tpu import SOCPSolver, certify
+from interiorpoint import SOCPSolver, certify
 
 
 def _rand_cone_points(rng, K, M1):
@@ -22,7 +22,7 @@ def test_nt_scaling_identities():
     W⁻¹(W u) = u; arrow solve inverts the Jordan product; max_step_cone
     brackets the cone boundary."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.ops.socp_pd import (
+    from interiorpoint.ops.socp_pd import (
         _arrow_solve, _jdet, _jmul, max_step_cone, nt_scaling, w_inv_mul,
         w_mul)
 
@@ -153,10 +153,10 @@ def test_socp_pd_batched_matches_slsqp():
     """solve_batch(algorithm='pd') on SOCP instances over the 8-device
     mesh: vmapped NT-scaled conic solves, per-instance SLSQP truth."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.models.problem import make_socp
-    from interiorpoint_tpu.parallel.batch import solve_batch, stack_problems
-    from interiorpoint_tpu.parallel.mesh import make_mesh
-    from interiorpoint_tpu.utils.config import SolverConfig
+    from interiorpoint.models.problem import make_socp
+    from interiorpoint.parallel.batch import solve_batch, stack_problems
+    from interiorpoint.parallel.mesh import make_mesh
+    from interiorpoint.utils.config import SolverConfig
 
     mesh = make_mesh(8, ("batch",))
     probs, x0s, refs = [], [], []
@@ -191,16 +191,15 @@ def test_socp_pd_unbounded_reports_failure():
 
 
 @pytest.mark.parametrize("m_eq,quad", [(3, False), (4, True)])
-def test_socp_pd_tpu_numerics_on_cpu(m_eq, quad):
-    """The TPU production configuration of the XLA direction path —
-    ``exact_fallback=False``, i.e. NO emulated-f64 stall fallback inside
-    the mixed-precision solves (ops/socp_pd.py ``exact_fb``) — must
-    converge to the same optimum as the default CPU configuration.
-    Round-3 VERDICT weak #5: this branch only ever ran on hardware."""
+def test_socp_pd_without_exact_fallback(m_eq, quad):
+    """The direction path with ``exact_fallback=False`` — NO f64 stall
+    fallback inside the mixed-precision solves (ops/socp_pd.py
+    ``exact_fb``) — must converge to the same optimum as the default
+    configuration."""
     import jax.numpy as jnp
-    from interiorpoint_tpu.models.problem import make_socp
-    from interiorpoint_tpu.ops.socp_pd import cone_operator, socp_pd_solve
-    from interiorpoint_tpu.utils.config import SolverConfig
+    from interiorpoint.models.problem import make_socp
+    from interiorpoint.ops.socp_pd import cone_operator, socp_pd_solve
+    from interiorpoint.utils.config import SolverConfig
 
     As, bs, cs, ds, q, P, F, g, x0 = _make_socp(11, 4, 3, 10, m_eq, quad)
     prob = make_socp(list(As), list(bs), list(cs), list(ds), P, q, F, g,
@@ -208,18 +207,18 @@ def test_socp_pd_tpu_numerics_on_cpu(m_eq, quad):
     G, h, qv = cone_operator(prob)
     cfg = SolverConfig(dtype="float64", epsilon=1e-9)
     kw = dict(P=prob.P, F=prob.F, g=prob.g, lb=prob.lb, ub=prob.ub)
-    res_tpu = socp_pd_solve(G, h, qv, jnp.asarray(x0), cfg,
+    res_mf = socp_pd_solve(G, h, qv, jnp.asarray(x0), cfg,
                             exact_fallback=False, **kw)
-    assert bool(res_tpu.converged), (
-        f"exact_fallback=False did not converge: gap={float(res_tpu.gap)}"
-        f" rp={float(res_tpu.rp_norm)} rd={float(res_tpu.rd_norm)}")
+    assert bool(res_mf.converged), (
+        f"exact_fallback=False did not converge: gap={float(res_mf.gap)}"
+        f" rp={float(res_mf.rp_norm)} rd={float(res_mf.rd_norm)}")
     ref = _slsqp_ref(As, bs, cs, ds, q, P, F, g, x0, [(-3, 3)] * 10)
     obj = (lambda x: q @ x + 0.5 * x @ P @ x) if P is not None \
         else (lambda x: q @ x)
-    val = obj(np.asarray(res_tpu.x))
+    val = obj(np.asarray(res_mf.x))
     assert val == pytest.approx(ref, rel=1e-6, abs=1e-6)
-    # and the default (CPU) configuration lands on the same optimum
-    res_cpu = socp_pd_solve(G, h, qv, jnp.asarray(x0), cfg, **kw)
-    assert obj(np.asarray(res_cpu.x)) == pytest.approx(val, rel=1e-7,
+    # and the default configuration lands on the same optimum
+    res_default = socp_pd_solve(G, h, qv, jnp.asarray(x0), cfg, **kw)
+    assert obj(np.asarray(res_default.x)) == pytest.approx(val, rel=1e-7,
                                                        abs=1e-7)
 

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.optimize import minimize
 
-from interiorpoint_tpu.parallel import (make_mesh, solve_socp_cone_sharded,
+from interiorpoint.parallel import (make_mesh, solve_socp_cone_sharded,
                                         solve_socp_pd_cone_sharded)
 
 
